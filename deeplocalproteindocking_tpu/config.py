@@ -13,6 +13,9 @@ import json
 from typing import Optional, Tuple
 
 
+FFT_ENGINES = ("dft", "xla", "block")
+
+
 @dataclasses.dataclass(frozen=True)
 class DockConfig:
     # --- grid geometry (reference: TypedCoords2Volume args) ---
@@ -28,19 +31,16 @@ class DockConfig:
     shape_prior: bool = False     # hybrid model: analytic (surface,
                                   # core) channels ++ learned channels;
                                   # untrained == shape complementarity
-    compute_dtype: str = "float32"   # "bfloat16" for MXU-heavy serving
+    compute_dtype: str = "float32"   # "bfloat16" runs the CNN in bf16
 
     # --- sweep (reference: EQDocker + rotation sets) ---
     num_rotations: int = 13000
     rotation_chunk: int = 16      # rotations per scan step (batched FFTs)
-    sweep_mode: str = "resplat"   # "resplat" (TPU-fast, exact rotation)
+    sweep_mode: str = "resplat"   # "resplat" (exact coordinate rotation)
                                   # | "resample" (reference-style rep rotation)
     lig_grid_size: Optional[int] = None  # ligand box; None = auto-fit
-    fft_impl: str = "dft_fused"   # "dft_fused" (fused Pallas correlator:
-                                  #   forward-y/x + coupling + inverse-x/y
-                                  #   in VMEM — the fast path)
-                                  # | "dft" (pure-einsum matmul-DFT)
-                                  # | "dft_pallas" (fused Pallas inverse only)
+    fft_impl: str = "dft"         # "dft" (einsum matmul-DFT,
+                                  #   correlate/dft.py)
                                   # | "xla" (jnp.fft)
                                   # | "block" (overlap-save block FFT,
                                   #   correlate/blockfft.py — O(M^3) peak
@@ -50,7 +50,7 @@ class DockConfig:
     fft_block: int = 32           # translation-block edge for
                                   # fft_impl="block" (must divide
                                   # grid_size)
-    dft_dtype: str = "float32"    # "bfloat16" trades precision for MXU rate
+    dft_dtype: str = "float32"    # "bfloat16" trades precision for rate
     coupling_rank: Optional[int] = None
                                   # SVD-truncate the channel coupling to
                                   # rank r: ligand reps project to r
@@ -97,6 +97,12 @@ class DockConfig:
     seed: int = 0
     debug_nans: bool = False   # jax_debug_nans guard (SURVEY.md §5.2)
 
+    def __post_init__(self):
+        if self.fft_impl not in FFT_ENGINES:
+            raise ValueError(
+                f"unknown fft_impl {self.fft_impl!r}; the correlator "
+                f"engines are {FFT_ENGINES}")
+
     @property
     def c_rep(self) -> int:
         return self.rep_features[-1]
@@ -118,6 +124,12 @@ class DockConfig:
         return dataclasses.replace(self, **kw)
 
 
+# Rotations per scan step of the 128^3 sweep, measured on one 80 GB
+# H100 (PERF.md, "Bring-up measurements"): 32, 64 and 128 all fit at
+# full rank in f32; 32 and 64 tie and 128 is slower, so the largest
+# chunk that loses no speed.
+FULL_SWEEP_CHUNK = 64
+
 # The five BASELINE.json configs as named presets.
 PRESETS = {
     # configs[0]: single-complex rigid FFT docking, shape channels only,
@@ -131,23 +143,21 @@ PRESETS = {
     "rep-score": DockConfig(
         grid_size=96, num_rotations=16, rotation_chunk=16, top_k=16,
     ),
-    # configs[2]: full-resolution sweep with fused top-K + NMS.
-    # rotation_chunk=128: measured 5.26 s vs 9.42 s at chunk 16 on the
-    # 13k x 128^3 bench (v5e, round 2) — per-chunk scan/top-k overhead
-    # amortizes up to 128, plateaus after (chunk 256: 5.30 s; chunk
-    # 100: 5.60 s — power-of-two tiling matters).
+    # configs[2]: full-resolution sweep with streaming top-K + NMS.
+    # rotation_chunk: see FULL_SWEEP_CHUNK.
     "full-sweep": DockConfig(
-        grid_size=128, num_rotations=13000, rotation_chunk=128,
-        top_k=64,
+        grid_size=128, num_rotations=13000,
+        rotation_chunk=FULL_SWEEP_CHUNK, top_k=64,
     ),
     # configs[3]: end-to-end representation training.
     "train": DockConfig(
         grid_size=96, num_rotations=512, rotation_chunk=8,
         num_decoys=32, batch_complexes=2,
     ),
-    # configs[4]: batched multi-complex benchmark eval on a v5e-8 slice.
-    "benchmark-v5e8": DockConfig(
+    # configs[4]: batched multi-complex benchmark eval, rotations
+    # sharded over the four GPUs of one host.
+    "benchmark-4gpu": DockConfig(
         grid_size=128, num_rotations=13000, rotation_chunk=16, top_k=64,
-        mesh_rot=8, mesh_batch=1,
+        mesh_rot=4, mesh_batch=1,
     ),
 }

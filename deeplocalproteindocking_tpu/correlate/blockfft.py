@@ -2,7 +2,7 @@
 
 The long-context analog of this workload is spatial scale: a full-grid
 correlation materializes ``[L, L, L/2+1, C]`` complex spectra — at
-L=512, C=16 that is ~17 GB and outgrows a v5e chip's HBM.  This module
+L=512, C=16 that is ~17 GB per rotation.  This module
 computes the SAME score volume without ever forming an L-sized
 transform, by the classic overlap-save decomposition (the convolution
 counterpart of blockwise/ring attention):
@@ -13,7 +13,7 @@ counterpart of blockwise/ring attention):
   exactly) is correlated against the small ligand box with an
   ``M = B+Ls``-point FFT — every output in the block is alias-free
   because ``d + v < M`` for ``d < B``, ``v < Ls``;
-* blocks are scanned on one chip (peak memory = ONE tile's spectra)
+* blocks are scanned on one device (peak memory = ONE tile's spectra)
   and/or sharded over a mesh axis (``sharded_block_correlate``) —
   each device owns a slab of translation blocks, receptor replicated,
   zero collectives in the correlation itself.
@@ -21,8 +21,7 @@ counterpart of blockwise/ring attention):
 Per-block cost is ``O(M^3 log M)`` vs the monolithic ``O(L^3 log L)``;
 total FLOPs grow by ``(1 + Ls/B)^3`` — the usual overlap-save tax —
 in exchange for O(M^3) peak memory.  Extension engine for grids beyond
-128^3; the production 128^3 path stays the fused matmul-DFT
-(correlate/pallas_fused.py).
+128^3; the 128^3 path stays the matmul-DFT (correlate/dft.py).
 """
 from __future__ import annotations
 
@@ -31,6 +30,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+from deeplocalproteindocking_tpu.numerics import precision_for
 
 _AX = (0, 1, 2)
 
@@ -43,7 +44,8 @@ def _mixed_ligand(rep_lig_small: jax.Array,
     if coupling is None:
         return rep_lig_small
     return jnp.einsum("xyzc,ec->xyze", rep_lig_small,
-                      coupling.astype(rep_lig_small.dtype))
+                      coupling.astype(rep_lig_small.dtype),
+                      precision=precision_for(rep_lig_small.dtype))
 
 
 @functools.partial(jax.jit, static_argnames=("block",))

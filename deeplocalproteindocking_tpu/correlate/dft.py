@@ -1,15 +1,12 @@
-"""Matmul-DFT correlation engine: the FFT scan on the MXU.
+"""Matmul-DFT correlation engine: the translational FFT as matmuls.
 
-XLA's TPU FFT runs the 128^3 correlation at ~250 GFLOP/s effective and
-its internal transpose pads a ``[chunk, C, L, L, L]`` temp 8x (channel
-count lands on the 128-lane dim), OOMing at chunk=16 — measured on v5e.
-TPUs do one thing at speed-of-light: big matmuls.  A DFT *is* a matmul,
-so this module computes the 3-D transform as three einsum contractions
-with precomputed twiddle matrices:
+A DFT is a matmul, so this module computes the 3-D transform of the
+small ligand box as einsum contractions with precomputed twiddle
+matrices, which XLA hands to the GPU's matrix libraries:
 
 * forward, per axis: ``[Ls -> L]`` (x, y) and ``[Ls -> L/2+1]`` (z,
   rfft half-spectrum), complex arithmetic as explicit (re, im) pairs of
-  f32 matmuls — MXU-native, layout-controlled, no giant padded temps;
+  real matmuls;
 * the ligand box's centering offset is folded into the twiddle phase
   ``exp(-2 pi i (pos + off) k / L)`` — the zero-padded embed of the
   small box into the big box is NEVER materialized;
@@ -17,9 +14,11 @@ with precomputed twiddle matrices:
   real-part contraction against Hermitian-weighted twiddles
   (w = 2 for interior kz, 1 for the self-conjugate kz = 0, L/2 planes).
 
-Cost ~10 GFLOP/rotation of pure matmuls vs ~1.9 GFLOP of "true" FFT
-butterflies — and an order of magnitude faster on the MXU than XLA's
-FFT path.  O(L) > O(log L) is the right trade on a systolic array.
+About 10 GFLOP/rotation of matmuls at 128^3 and C=16, against ~1.9
+GFLOP of FFT butterflies; the ``xla`` engine (``jnp.fft``, cuFFT on the
+GPU) is the alternative, and ``PERF.md`` records which one is faster
+on the card.  Every f32 contraction states its precision
+(``numerics.precision_for``).
 
 The receptor spectrum is still computed once per complex with
 ``jnp.fft`` (off the hot path), then split into (re, im).
@@ -31,6 +30,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from deeplocalproteindocking_tpu.numerics import precision_for
 
 
 def _twiddle(pos: np.ndarray, freqs: np.ndarray, L: int, sign: float,
@@ -85,39 +86,40 @@ class DFTCorrelator:
         ``[B, L, L, L//2+1, C]`` — as if the small box were centered in
         the big box (offset folded into the twiddles)."""
         f32 = jnp.float32
+        prec = precision_for(self.dtype)
         v = vols.astype(self.dtype)
         WzRe, WzIm, WyRe, WyIm, WxRe, WxIm = self._cast(
             self.WzRe, self.WzIm, self.WyRe, self.WyIm, self.WxRe,
             self.WxIm)
         # z: real x complex
         are = jnp.einsum("bxyzc,zk->bxykc", v, WzRe,
-                         preferred_element_type=f32)
+                         preferred_element_type=f32, precision=prec)
         aim = jnp.einsum("bxyzc,zk->bxykc", v, WzIm,
-                         preferred_element_type=f32)
+                         preferred_element_type=f32, precision=prec)
         are, aim = self._cast(are, aim)
         # y: complex x complex
         bre = (jnp.einsum("bxykc,yj->bxjkc", are, WyRe,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                - jnp.einsum("bxykc,yj->bxjkc", aim, WyIm,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         bim = (jnp.einsum("bxykc,yj->bxjkc", are, WyIm,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                + jnp.einsum("bxykc,yj->bxjkc", aim, WyRe,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         bre, bim = self._cast(bre, bim)
         # x: complex x complex
         fre = (jnp.einsum("bxjkc,xi->bijkc", bre, WxRe,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                - jnp.einsum("bxjkc,xi->bijkc", bim, WxIm,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         fim = (jnp.einsum("bxjkc,xi->bijkc", bre, WxIm,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                + jnp.einsum("bxjkc,xi->bijkc", bim, WxRe,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         return fre, fim
 
     def scores(self, Hre: jax.Array, Him: jax.Array,
-               vols: jax.Array, inverse_impl: str = "einsum") -> jax.Array:
+               vols: jax.Array) -> jax.Array:
         """Correlation score volumes ``[B, L, L, L]``.
 
         ``Hre/Him``: coupled receptor spectrum ``[L, L, L//2+1, C]``
@@ -126,110 +128,55 @@ class DFTCorrelator:
         S = irfftn( sum_c H_c conj(F_c) ).
         """
         f32 = jnp.float32
+        prec = precision_for(self.dtype)
         fre, fim = self.ligand_spectrum(vols)
         Hre_, Him_ = self._cast(Hre, Him)
         fre, fim = self._cast(fre, fim)
         # H * conj(F), summed over channels.
         gre = (jnp.einsum("ijkc,bijkc->bijk", Hre_, fre,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                + jnp.einsum("ijkc,bijkc->bijk", Him_, fim,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         gim = (jnp.einsum("ijkc,bijkc->bijk", Him_, fre,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                - jnp.einsum("ijkc,bijkc->bijk", Hre_, fim,
-                            preferred_element_type=f32))
-        if inverse_impl == "pallas":
-            from deeplocalproteindocking_tpu.correlate.pallas_idft import (
-                correlator_pallas_inverse)
-            return correlator_pallas_inverse(self, gre, gim)
+                            preferred_element_type=f32, precision=prec))
         return self.inverse(gre, gim)
-
-    # ---- fused-kernel path (correlate/pallas_fused.py) ----
-    def prep_H(self, H: jax.Array):
-        """Transpose the coupled receptor spectrum ``[i, j, k, c]`` into
-        the fused kernel's ``[k, c, j, i]`` layout.  Once per complex,
-        off the hot path."""
-        Ht = jnp.transpose(H, (2, 3, 1, 0))
-        return (Ht.real.astype(self.dtype), Ht.imag.astype(self.dtype))
-
-    def fused_D(self, HtRe: jax.Array, HtIm: jax.Array,
-                vols: jax.Array, interpret: bool = False):
-        """``D (re, im) [b, K, X, Y]`` via the fused Pallas kernel.
-
-        ``HtRe/HtIm`` from :meth:`prep_H`; ``vols [b, Ls, Ls, Ls, C]``.
-        The z forward pass runs in XLA emitting the kernel's
-        ``[b, k, c, x, y]`` layout; the kernel fuses forward-y/x +
-        coupling + inverse-x/y.  D is the input both of the Hermitian
-        kz->z inverse (:meth:`scores_fused`) and of the fused
-        inverse+block-max top-K tail (correlate/pallas_invz_topk.py) —
-        ONE implementation so the two paths can never diverge.
-        """
-        from deeplocalproteindocking_tpu.correlate.pallas_fused import (
-            fused_correlate)
-        f32 = jnp.float32
-        v = vols.astype(self.dtype)
-        WzRe, WzIm, WyRe, WyIm, WxRe, WxIm = self._cast(
-            self.WzRe, self.WzIm, self.WyRe, self.WyIm, self.WxRe,
-            self.WxIm)
-        UxRe, UxIm, UyRe, UyIm = self._cast(
-            self.UxRe, self.UxIm, self.UyRe, self.UyIm)
-        # z: real x complex -> [b, k, c, x, y]
-        are = jnp.einsum("bxyzc,zk->bkcxy", v, WzRe,
-                         preferred_element_type=f32)
-        aim = jnp.einsum("bxyzc,zk->bkcxy", v, WzIm,
-                         preferred_element_type=f32)
-        are, aim = self._cast(are, aim)
-        return fused_correlate(
-            are, aim, HtRe, HtIm, WyRe, WyIm, WxRe, WxIm,
-            UxRe, UxIm, UyRe, UyIm, interpret=interpret)
-
-    def scores_fused(self, HtRe: jax.Array, HtIm: jax.Array,
-                     vols: jax.Array, interpret: bool = False) -> jax.Array:
-        """Score volumes via the fused Pallas kernel (see
-        :meth:`fused_D`); the Hermitian kz->z inverse is one XLA
-        contraction."""
-        f32 = jnp.float32
-        Dre, Dim = self.fused_D(HtRe, HtIm, vols, interpret=interpret)
-        MzRe, MzIm = self._cast(self.MzRe, self.MzIm)
-        # Hermitian kz -> z: S = Re{ sum_k D * Mz }
-        return (jnp.einsum("bkxy,kz->bxyz", Dre, MzRe,
-                           preferred_element_type=f32)
-                - jnp.einsum("bkxy,kz->bxyz", Dim, MzIm,
-                             preferred_element_type=f32))
 
     def inverse(self, gre: jax.Array, gim: jax.Array) -> jax.Array:
         """irfftn of the summed spectrum ``G (re, im) [B, L, L, L/2+1]``
         as three axis contractions -> real ``[B, L, L, L]``."""
         f32 = jnp.float32
+        prec = precision_for(self.dtype)
         gre, gim = self._cast(gre, gim)
         UxRe, UxIm, UyRe, UyIm, MzRe, MzIm = self._cast(
             self.UxRe, self.UxIm, self.UyRe, self.UyIm, self.MzRe,
             self.MzIm)
         # inverse x
         cre = (jnp.einsum("bijk,ix->bxjk", gre, UxRe,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                - jnp.einsum("bijk,ix->bxjk", gim, UxIm,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         cim = (jnp.einsum("bijk,ix->bxjk", gre, UxIm,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                + jnp.einsum("bijk,ix->bxjk", gim, UxRe,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         cre, cim = self._cast(cre, cim)
         # inverse y
         dre = (jnp.einsum("bxjk,jy->bxyk", cre, UyRe,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                - jnp.einsum("bxjk,jy->bxyk", cim, UyIm,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         dim = (jnp.einsum("bxjk,jy->bxyk", cre, UyIm,
-                          preferred_element_type=f32)
+                          preferred_element_type=f32, precision=prec)
                + jnp.einsum("bxjk,jy->bxyk", cim, UyRe,
-                            preferred_element_type=f32))
+                            preferred_element_type=f32, precision=prec))
         dre, dim = self._cast(dre, dim)
         # inverse z with Hermitian fold: S = Re{ sum_k d * Mz }
         S = (jnp.einsum("bxyk,kz->bxyz", dre, MzRe,
-                        preferred_element_type=f32)
+                        preferred_element_type=f32, precision=prec)
              - jnp.einsum("bxyk,kz->bxyz", dim, MzIm,
-                          preferred_element_type=f32))
+                          preferred_element_type=f32, precision=prec))
         return S
 
 

@@ -11,11 +11,11 @@ integer translation is computed in one shot via the correlation theorem,
 and gradients flow through it for training (BASELINE.json: north_star
 "grads through ... FFT correlator").
 
-TPU-native design decisions:
+Design decisions:
 
-* ``jnp.fft.rfftn`` — XLA's FFT is native on TPU; no cuFFT plans, no
-  custom backward (XLA differentiates the FFT exactly; a custom VJP would
-  only save residual memory and can come later).
+* ``jnp.fft.rfftn`` — XLA lowers it to cuFFT on the GPU; no custom
+  backward (XLA differentiates the FFT exactly; a custom VJP would only
+  save residual memory and can come later).
 * **Receptor spectrum caching with the channel coupling folded in**: the
   reference correlates per channel pair and sums afterwards; here the
   coupled receptor spectrum ``H`` is precomputed once per complex, so the
@@ -35,6 +35,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from deeplocalproteindocking_tpu.numerics import precision_for
+
 _FFT_AXES = (0, 1, 2)
 
 
@@ -50,22 +52,23 @@ def receptor_transform(rec_rep: jax.Array,
     if coupling is None:
         return F_rec
     return jnp.einsum("xyzc,cd->xyzd", F_rec,
-                      coupling.astype(F_rec.real.dtype))
+                      coupling.astype(F_rec.real.dtype),
+                      precision=precision_for(F_rec.dtype))
 
 
 def resolve_engine(fft_impl: str, grid_size: int) -> str:
     """Concrete correlator engine for a config choice.
 
-    ``dft_fused`` (the production matmul-DFT + Pallas kernel) is tuned
-    for <=128^3 tiling; beyond that the overlap-save block engine
-    (correlate/blockfft.py, SURVEY.md §5.7) keeps peak memory at
-    O((block+Ls)^3) instead of O(L^3) spectra.  Single source of truth
+    The default ``dft`` engine holds full ``L^3`` spectra per rotation;
+    above 128^3 the overlap-save block engine (correlate/blockfft.py,
+    SURVEY.md §5.7) takes over and keeps peak memory at
+    O((block+Ls)^3) instead.  Single source of truth
     for the dispatch used by pipeline.dock/rescore, batched evaluation
     and training/mining (round-3 ADVICE: the auto-dispatch lived only
     in dock(), so the other entry points crashed under
     ``fft_impl='block'``).
     """
-    if fft_impl == "dft_fused" and grid_size > 128:
+    if fft_impl == "dft" and grid_size > 128:
         return "block"
     return fft_impl
 
@@ -87,7 +90,8 @@ def coupled_receptor(rep_rec: jax.Array,
         if coupling is None:
             return rep_rec
         return jnp.einsum("...c,cd->...d", rep_rec,
-                          coupling.astype(rep_rec.dtype))
+                          coupling.astype(rep_rec.dtype),
+                          precision=precision_for(rep_rec.dtype))
     return receptor_transform(rep_rec, coupling)
 
 

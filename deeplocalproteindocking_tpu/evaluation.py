@@ -285,8 +285,8 @@ def run_benchmark_batched(pipeline: DockingPipeline,
         # The complex axis multiplies every per-scan-step activation by
         # the per-device group size, so the rotation chunk must shrink
         # by the same factor — rotation_chunk is tuned as ONE sweep's
-        # per-step batch (same memory-amplification class that crashed
-        # TPU workers in pipeline.rescore's head vmap, round 4).
+        # per-step batch (the memory-amplification class of
+        # pipeline.rescore's head vmap, DESIGN.md).
         per_dev = len(group)
         if pipeline.mesh is not None and "batch" in pipeline.mesh.shape:
             per_dev = -(-len(group) // pipeline.mesh.shape["batch"])

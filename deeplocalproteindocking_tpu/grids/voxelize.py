@@ -7,27 +7,24 @@ mount empty, unverified]: each heavy atom deposits a truncated Gaussian
 op is differentiable w.r.t. atom coordinates (the "grads through
 voxelizer" requirement in BASELINE.json: north_star).
 
-TPU-native design, deliberately different from the CUDA original:
+Design, deliberately different from the CUDA original:
 
 * The CUDA kernel parallelizes over atoms and uses ``atomicAdd`` into the
   grid — fast but **nondeterministic** in the backward.  Here the forward
   is a single XLA ``scatter-add`` over precomputed per-atom local
   windows: each atom contributes a separable ``W^3`` Gaussian patch whose
   weights are an outer product of three 1-D Gaussians (``O(N W)``
-  transcendentals, not ``O(N W^3)``).  XLA scatter-add on TPU is
-  deterministic, so double runs are bitwise identical (asserted in
-  tests — SURVEY.md §5.2).
+  transcendentals, not ``O(N W^3)``).  The sweep's hot path uses the
+  matmul-form :func:`separable_splat`, which has no scatter at all, so
+  its double runs are bitwise identical (asserted in tests — SURVEY.md
+  §5.2).
 * The backward needs no custom kernel at all: window *indices* are
   ``stop_gradient``-ed integers, the weights are smooth functions of the
   coordinates, and autodiff of scatter-add is a gather — exactly the
   "gather of grid-gradient x Gaussian spatial gradient" the reference
   hand-writes in CUDA.
-* Volumes are channels-last ``[L, L, L, T]`` so the downstream 3-D conv
-  lands on the MXU with the channel dim on lanes.
-
-A Pallas tiled-accumulation kernel is the planned upgrade if the scatter
-profiles hot; the splat is off the sweep hot path (once per complex vs
-~10^4 FFT rotations), so pure XLA is the right first implementation.
+* Volumes are channels-last ``[L, L, L, T]``, the layout the downstream
+  3-D convolutions take.
 """
 from __future__ import annotations
 
@@ -35,6 +32,8 @@ import functools
 
 import jax
 import jax.numpy as jnp
+
+from deeplocalproteindocking_tpu.numerics import precision_for
 
 
 def default_origin(grid_size: int, resolution: float) -> jnp.ndarray:
@@ -123,13 +122,12 @@ def separable_splat(coords: jax.Array,
 
         D[x, y, z, t] = sum_a Px[a, x] * Py[a, y] * Pz[a, z] * 1[type_a = t]
 
-    computed as one MXU contraction: ``U[a, (y,z)] = Py odot Pz`` then
-    ``D[(y,z), (x,t)] = U^T @ (Px odot onehot)``.  This is the TPU
-    answer to the reference's CUDA atom-scatter kernel for the *hot*
-    path (per-rotation ligand re-splat in the resplat sweep mode): dense
-    profiles keep everything on the MXU/VPU, the output is exact (full
-    support — no window truncation), deterministic, and differentiable
-    w.r.t. coords through the profile exponentials.
+    computed as one contraction: ``U[a, (y,z)] = Py odot Pz`` then
+    ``D[(y,z), (x,t)] = U^T @ (Px odot onehot)``.  This replaces the
+    reference's CUDA atom-scatter kernel on the *hot* path (per-rotation
+    ligand re-splat in the resplat sweep mode): the output is exact
+    (full support — no window truncation), deterministic, and
+    differentiable w.r.t. coords through the profile exponentials.
 
     Intended for small boxes (ligand-sized, L <= 64): the intermediate
     ``U`` is ``[N, L^2]``.  For the big receptor box use :func:`splat`
@@ -155,7 +153,8 @@ def separable_splat(coords: jax.Array,
         W = px[:, :, None] * onehot[:, None, :]            # [n, L, T]
         U = py[:, :, None] * pz[:, None, :]                # [n, L, L]
         return jnp.einsum("ayz,axt->xyzt", U, W,
-                          preferred_element_type=jnp.float32)
+                          preferred_element_type=jnp.float32,
+                          precision=precision_for(U.dtype))
 
     n = coords.shape[0]
     if atom_chunk is None or n <= atom_chunk:

@@ -15,60 +15,60 @@ The actual sweep lives in ``sweep/docker.py`` as pure functions of
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Any, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from deeplocalproteindocking_tpu.models.representation import (
-    HybridRepresentation, Representation, shape_channels,
+    HybridRepresentation, Module, Representation, shape_channels,
 )
 
 
-def _identity_init(key, shape, dtype=jnp.float32):
-    del key
-    return jnp.eye(shape[0], shape[1], dtype=dtype)
-
-
-def _shape_block_init(key, shape, dtype=jnp.float32):
+def _shape_block_coupling(c: int) -> jnp.ndarray:
     """Block-diagonal init for the hybrid model: the 2x2 shape-
     complementarity coupling in the prior block, ZEROS elsewhere —
     so the untrained hybrid scores EXACTLY classic shape
     complementarity (the learned channels contribute nothing until
     the ranking loss moves the coupling off zero)."""
-    del key
-    m = jnp.zeros(shape, dtype=dtype)
+    m = jnp.zeros((c, c), jnp.float32)
     return m.at[:2, :2].set(shape_channels(jnp.zeros((4, 4, 4, 1)))[1])
 
 
-class ScoringModel(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ScoringModel(Module):
+    """Params: ``{"coupling": [C, C], "representation": ...}``."""
     features: Tuple[int, ...] = (32, 32, 16)
     kernel: int = 3
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
     shape_prior: bool = False    # hybrid: analytic (surface, core)
                                  # channels ++ learned CNN channels
 
-    def setup(self):
+    @property
+    def representation(self):
         if self.shape_prior:
-            self.representation = HybridRepresentation(
-                features=self.features, kernel=self.kernel,
-                dtype=self.dtype)
-            c = self.features[-1] + 2
-            self.coupling = self.param("coupling", _shape_block_init,
-                                       (c, c))
+            return HybridRepresentation(features=self.features,
+                                        kernel=self.kernel,
+                                        dtype=self.dtype)
+        return Representation(features=self.features, kernel=self.kernel,
+                              dtype=self.dtype)
+
+    def init_params(self, key: jax.Array, in_channels: int) -> dict:
+        if self.shape_prior:
+            coupling = _shape_block_coupling(self.features[-1] + 2)
         else:
-            self.representation = Representation(
-                features=self.features, kernel=self.kernel,
-                dtype=self.dtype)
-            c = self.features[-1]
-            self.coupling = self.param("coupling", _identity_init,
-                                       (c, c))
+            coupling = jnp.eye(self.features[-1], dtype=jnp.float32)
+        return {"coupling": coupling,
+                "representation": self.representation.init_params(
+                    key, in_channels)}
 
-    def __call__(self, rec_vol: jnp.ndarray, lig_vol: jnp.ndarray):
+    def __call__(self, params: dict, rec_vol: jnp.ndarray,
+                 lig_vol: jnp.ndarray):
         """Returns (rep_rec, rep_lig, coupling) for the sweep/trainer."""
-        rep_rec = self.representation(rec_vol)
-        rep_lig = self.representation(lig_vol)
-        return rep_rec, rep_lig, self.coupling
+        rep_rec = self.represent(params, rec_vol)
+        rep_lig = self.represent(params, lig_vol)
+        return rep_rec, rep_lig, params["coupling"]
 
-    def represent(self, vol: jnp.ndarray) -> jnp.ndarray:
-        return self.representation(vol)
+    def represent(self, params: dict, vol: jnp.ndarray) -> jnp.ndarray:
+        return self.representation(params["representation"], vol)

@@ -1,7 +1,7 @@
 """Batched multi-complex docking over the full (rot, batch) mesh.
 
-BASELINE.json configs[4]: "batched multi-complex Benchmark-5 evaluation
-with rotation sharding across a v5e-8 pod slice".  The reference's
+BASELINE.json configs[4]: batched multi-complex Benchmark-5 evaluation
+with rotation sharding across several devices.  The reference's
 analog is an outer Python loop over complexes (single GPU); here a group
 of complexes is padded to common shapes and docked as ONE compiled
 program over a 2-D mesh:
@@ -9,7 +9,7 @@ program over a 2-D mesh:
 * mesh axis ``batch`` shards the complex dimension (pure data
   parallelism — no cross-complex communication at all);
 * mesh axis ``rot`` shards each complex's rotation set exactly as in
-  sharded_sweep.py (all-gather of K candidates over ICI is the only
+  sharded_sweep.py (all-gather of K candidates is the only
   collective).
 
 Each device therefore owns a (complex-slice x rotation-slice) tile of
@@ -45,8 +45,7 @@ def dock_batch(mesh: Optional[Mesh],
                score_mask: Optional[jax.Array] = None,
                fft_impl: str = "dft",
                dft_dtype: str = "float32",
-               fft_block: int = 32,
-               fused_topk: Optional[bool] = None) -> DockResult:
+               fft_block: int = 32) -> DockResult:
     """Dock ``B`` complexes against one rotation set in one program.
 
     ``H_batch [B, L, L, L//2+1, C]`` coupled receptor spectra;
@@ -60,13 +59,7 @@ def dock_batch(mesh: Optional[Mesh],
     kw = dict(grid_size=grid_size, lig_grid=lig_grid,
               resolution=resolution, sigma=sigma, num_types=num_types,
               top_k=top_k, chunk=chunk, fft_impl=fft_impl,
-              dft_dtype=dft_dtype, fft_block=fft_block,
-              # The complex axis is a vmap over the whole sweep; the
-              # fused invz+topk kernel folds that axis into its own b
-              # grid axis via custom_vmap (round 5) — auto-select is
-              # safe here (a vmapped pallas_call of it faulted the TPU
-              # worker in round 4; the fold never emits one).
-              fused_topk=fused_topk)
+              dft_dtype=dft_dtype, fft_block=fft_block)
 
     if mesh is None:
         if score_mask is None:

@@ -8,9 +8,9 @@ parallel axes are:
               (embarrassingly parallel; only a top-K merge collective);
 * ``batch`` — complexes (benchmark eval) / training data parallelism.
 
-Collectives ride ICI within a slice; across slices XLA routes over DCN —
-no custom transport (the JAX sharding model, cf. the public scaling
-book).
+XLA inserts the collectives from the sharding specs and hands them to
+the GPU's collective library (NCCL over NVLink within a host) — no
+custom transport.
 """
 from __future__ import annotations
 

@@ -2,10 +2,10 @@
 
 NEW relative to the single-GPU reference (SURVEY.md §2.3): the SO(3)
 rotation set is sharded across the ``rot`` mesh axis with ``shard_map``;
-each chip runs the same compiled scan sweep (sweep/docker.py) over its
+each device runs the same compiled scan sweep (sweep/docker.py) over its
 contiguous rotation slice with the receptor spectrum replicated, then
-the per-chip top-K candidate lists are ``all_gather``-ed over ICI and
-re-reduced to a replicated global top-K — the only cross-chip
+the per-device top-K candidate lists are ``all_gather``-ed and
+re-reduced to a replicated global top-K — the only cross-device
 communication in the whole sweep (K * n_dev scalars, vs ~10^14 scores
 computed).
 
@@ -63,8 +63,8 @@ def sharded_dock_sweep(mesh: Mesh,
         rot_idx = res.rot_idx + base
         valid = rot_idx < n_valid
         scores = jnp.where(valid, res.scores, -jnp.inf)
-        # Top-K merge over ICI: gather each chip's K candidates, then an
-        # identical local re-top-K on every chip (replicated output).
+        # Top-K merge: gather each device's K candidates, then an
+        # identical local re-top-K on every device (replicated output).
         all_scores = jax.lax.all_gather(scores, "rot").reshape(-1)
         all_rot = jax.lax.all_gather(rot_idx, "rot").reshape(-1)
         all_shift = jax.lax.all_gather(res.shifts, "rot").reshape(-1, 3)
@@ -104,7 +104,7 @@ def sharded_dock_sweep_resplat(mesh: Mesh,
     """Rotation-sharded resplat sweep (see sweep/resplat.py).
 
     Same communication pattern as :func:`sharded_dock_sweep`: only the
-    per-chip top-K candidate lists cross ICI.
+    per-device top-K candidate lists cross devices.
     """
     from deeplocalproteindocking_tpu.sweep.resplat import (
         dock_sweep_resplat)
@@ -128,13 +128,7 @@ def sharded_dock_sweep_resplat(mesh: Mesh,
             num_types=num_types, top_k=top_k, chunk=chunk,
             score_mask=score_mask, num_valid=local_valid,
             fft_impl=fft_impl, dft_dtype=dft_dtype,
-            topk_impl=topk_impl, fft_block=fft_block,
-            # The fused invz+topk pallas_call faults the TPU worker
-            # under vmap, and under shard_map it is fault-UNVALIDATED
-            # (no multi-chip hardware this round) — pin the proven
-            # score-volume path; flip after a real multi-chip
-            # validation run, not before.
-            fused_topk=False)
+            topk_impl=topk_impl, fft_block=fft_block)
         rot_idx = res.rot_idx + base
         valid = rot_idx < n_valid
         scores = jnp.where(valid, res.scores, -jnp.inf)

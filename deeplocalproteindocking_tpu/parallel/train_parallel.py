@@ -1,12 +1,12 @@
-"""Multi-chip training step: complexes x decoys sharded over the mesh.
+"""Multi-device training step: complexes x decoys sharded over the mesh.
 
 NEW relative to the single-GPU reference (SURVEY.md §2.3 "Training data
 parallelism").  Two mesh axes are used:
 
 * ``batch`` — complexes of the train batch (plain data parallelism);
 * ``rot``   — each complex's decoy set (the workload's rotation-like
-  axis): every chip scores its slice of decoys, the score vectors are
-  ``all_gather``-ed over ICI so the pairwise ranking hinge sees the full
+  axis): every device scores its slice of decoys, the score vectors are
+  ``all_gather``-ed so the pairwise ranking hinge sees the full
   decoy set, and gradients flow back through the local slice only.
 
 Gradients are averaged with ``psum`` over both axes (XLA inserts the
@@ -29,7 +29,7 @@ from deeplocalproteindocking_tpu.train.scoring_path import complex_scores
 
 
 def make_parallel_train_step(trainer: Trainer, mesh: Mesh):
-    """Build a jitted multi-chip train step over ``mesh`` (rot, batch).
+    """Build a jitted multi-device train step over ``mesh`` (rot, batch).
 
     The returned function maps ``(TrainState, TrainBatch) ->
     (TrainState, metrics)`` with ``TrainBatch`` leaves sharded:

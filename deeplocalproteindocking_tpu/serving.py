@@ -12,7 +12,7 @@ a structure hash, so repeat queries pay only the ligand-side work
 (per-rotation splat + CNN + correlation).
 
 The reference has no serving layer at all (single-GPU research scripts,
-SURVEY.md §1); this is a new TPU-native capability on top of
+SURVEY.md §1); this is a new capability on top of
 ``pipeline._prepare``/``dock(prep=)``.
 
 Cache key = SHA-256 over (receptor coords/types bytes, the scoring

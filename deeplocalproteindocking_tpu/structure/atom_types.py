@@ -7,10 +7,10 @@ every heavy atom of the 20 standard residues maps to one of 11 chemical
 types (carbon sp3 / sp2 / aromatic; nitrogen amide / aromatic /
 guanidinium / ammonium; oxygen carbonyl / carboxyl / hydroxyl; sulfur).
 
-TPU-native divergence from the reference: the reference physically
-*reorders* coordinates grouped by type and returns per-type offset/count
-tensors (its CUDA splat kernel iterated contiguous type ranges).  On TPU
-the voxelizer is a scatter-add indexed by a per-atom integer type, so no
+Divergence from the reference: the reference physically *reorders*
+coordinates grouped by type and returns per-type offset/count tensors
+(its CUDA splat kernel iterated contiguous type ranges).  Here the
+voxelizer indexes its type channel by a per-atom integer type, so no
 reordering is needed — this module just returns ``types[N] int32`` with
 ``-1`` for atoms outside the table (dropped downstream).
 """

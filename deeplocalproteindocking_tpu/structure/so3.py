@@ -3,7 +3,7 @@
 The reference ships precomputed near-uniform SO(3) sampling files (a
 coarse set and a dense ~10^4 set) and restricts *local* docking to a cone
 around the native orientation [U: DeepLocalProteinDocking rotation data;
-paper bioRxiv 738690].  Shipping data files is unnecessary on TPU: the
+paper bioRxiv 738690].  Shipping data files is unnecessary here: the
 Super-Fibonacci spiral (Alexa, CVPR 2022 — public algorithm) generates a
 low-discrepancy SO(3) sample of *any* size in O(n) closed form, so
 rotation sets become pure functions of ``n`` — deterministic across
@@ -15,6 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
+from deeplocalproteindocking_tpu.numerics import precision_for
 from deeplocalproteindocking_tpu.structure.transforms import (
     axis_angle_to_matrix, quat_to_matrix,
 )
@@ -67,11 +68,13 @@ def local_rotations(base: jax.Array, max_angle: float, n: int,
     cdf = cdf / cdf[-1]
     angles = jnp.interp(u, cdf, grid)
     local = axis_angle_to_matrix(axes, angles)
-    return jnp.einsum("nij,jk->nik", local, base)
+    return jnp.einsum("nij,jk->nik", local, base,
+                      precision=precision_for())
 
 
 def geodesic_angle(R1: jax.Array, R2: jax.Array) -> jax.Array:
     """Rotation angle of R1 R2^T — the SO(3) geodesic distance."""
-    tr = jnp.einsum("...ij,...ij->...", R1, R2)
+    tr = jnp.einsum("...ij,...ij->...", R1, R2,
+                    precision=precision_for())
     cos = jnp.clip((tr - 1.0) / 2.0, -1.0, 1.0)
     return jnp.arccos(cos)

@@ -4,7 +4,7 @@ Capability parity with the reference's CoordsTransform ops
 [U: TorchProteinLibrary/Layers/FullAtomModel/CoordsTransform — mount
 empty, unverified]: batched translate / rotate / center / bbox and
 uniform random rotations.  The reference implements these as C++
-autograd Functions; on TPU they are two-line ``jnp`` expressions that XLA
+autograd Functions; here they are two-line ``jnp`` expressions that XLA
 fuses into neighboring kernels, with masking for padded atoms.
 
 Conventions:
@@ -18,10 +18,13 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from deeplocalproteindocking_tpu.numerics import precision_for
+
 
 def rotate(coords: jax.Array, R: jax.Array) -> jax.Array:
     """Rotate ``[..., N, 3]`` coords by ``[..., 3, 3]`` rotations."""
-    return jnp.einsum("...ij,...nj->...ni", R, coords)
+    return jnp.einsum("...ij,...nj->...ni", R, coords,
+                      precision=precision_for())
 
 
 def translate(coords: jax.Array, t: jax.Array) -> jax.Array:

@@ -5,7 +5,7 @@ Capability parity with the reference's pose post-processing
 clustering of the ranked pose list, suppressing poses within an RMSD
 radius of an already-accepted pose.
 
-TPU-native design: the reference computes pairwise RMSDs with its CUDA
+Design: the reference computes pairwise RMSDs with its CUDA
 ``Coords2RMSD`` op per pair.  For *rigid* poses of the same ligand the
 pairwise RMSD has a closed form — with centered ligand coords X
 (mean 0) and gyration matrix ``C = X^T X / N``:
@@ -22,6 +22,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from deeplocalproteindocking_tpu.numerics import precision_for
+
 
 def pose_pairwise_rmsd(lig_coords: jax.Array,
                        Rs: jax.Array, ts: jax.Array,
@@ -37,11 +39,12 @@ def pose_pairwise_rmsd(lig_coords: jax.Array,
     n = jnp.maximum(w.sum(), 1.0)
     mu = (lig_coords * w[:, None]).sum(0) / n
     X = (lig_coords - mu) * w[:, None] ** 0.5
-    C = (X.T @ X) / n                                   # [3, 3] gyration
+    hi = precision_for()
+    C = jnp.matmul(X.T, X, precision=hi) / n            # [3, 3] gyration
     # Poses rotate about the ligand center: x -> R(x - mu) + mu + t, so
     # the center-offset between poses is exactly t_i - t_j.
     dR = Rs[:, None] - Rs[None, :]                      # [K, K, 3, 3]
-    quad = jnp.einsum("abij,jk,abik->ab", dR, C, dR)
+    quad = jnp.einsum("abij,jk,abik->ab", dR, C, dR, precision=hi)
     dt = ts[:, None] - ts[None, :]
     sq = quad + jnp.sum(dt * dt, axis=-1)
     return jnp.sqrt(jnp.maximum(sq, 0.0))

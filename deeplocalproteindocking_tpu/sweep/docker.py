@@ -6,7 +6,7 @@ unverified]: for each rotation in an SO(3) set, rotate the ligand
 representation, correlate against the receptor representation over all
 translations, and keep the best (rotation, translation, score) poses.
 
-TPU-native design (this is THE hot path — SURVEY.md §3.1):
+Design (this is the reference-style hot path — SURVEY.md §3.1):
 
 * The reference runs a Python ``for R in rotations`` loop launching CUDA
   kernels per iteration.  Here the whole sweep is ONE compiled
@@ -15,8 +15,7 @@ TPU-native design (this is THE hot path — SURVEY.md §3.1):
   gather -> FFT -> pointwise -> iFFT -> top-k without host round trips.
 * **Streaming top-K in the scan carry**: a 13k-rotation x 128^3 sweep
   would materialize ~10^14 scores; instead each chunk reduces to its
-  per-rotation top-K immediately after the inverse FFT (XLA keeps the
-  score volume on-chip) and merges into a running global top-K.  Memory
+  per-rotation top-K immediately after the inverse FFT and merges into a running global top-K.  Memory
   is O(L^3 * chunk), independent of the rotation count.
 * The receptor spectrum (with channel coupling folded in) is computed
   once, outside the scan (see correlate/fft.py).

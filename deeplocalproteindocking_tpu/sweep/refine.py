@@ -15,8 +15,8 @@ rotation perturbation (axis-angle) and a sub-voxel translation:
   differentiable, and no inverse transform.
 
 This capability has no reference analog (the reference reports lattice
-poses [U: DeepLocalProteinDocking/Docking]); it exists because the
-TPU-native scoring path is differentiable end to end.
+poses [U: DeepLocalProteinDocking/Docking]); it exists because this
+scoring path is differentiable end to end.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ import optax
 
 from deeplocalproteindocking_tpu.correlate.dft import get_correlator
 from deeplocalproteindocking_tpu.grids.voxelize import separable_splat
+from deeplocalproteindocking_tpu.numerics import precision_for
 from deeplocalproteindocking_tpu.structure.transforms import (
     axis_angle_to_matrix,
 )
@@ -82,7 +83,8 @@ def continuous_score(H: jax.Array,
                      num_types: int) -> jax.Array:
     """Score of one continuous pose (R, t in voxel units), differentiable."""
     L = grid_size
-    coords_r = jnp.einsum("ij,nj->ni", R, lig_coords)
+    hi = precision_for()
+    coords_r = jnp.einsum("ij,nj->ni", R, lig_coords, precision=hi)
     vol = separable_splat(coords_r, lig_types, lig_mask,
                           grid_size=lig_grid, resolution=resolution,
                           sigma=sigma, num_types=num_types)
@@ -90,19 +92,20 @@ def continuous_score(H: jax.Array,
     corr = get_correlator(L, lig_grid, "float32")
     fre, fim = corr.ligand_spectrum(rep)           # [1, L, L, L/2+1, C]
     # G = sum_c H conj(F)
-    gre = jnp.einsum("ijkc,ijkc->ijk", H.real, fre[0]) + \
-        jnp.einsum("ijkc,ijkc->ijk", H.imag, fim[0])
-    gim = jnp.einsum("ijkc,ijkc->ijk", H.imag, fre[0]) - \
-        jnp.einsum("ijkc,ijkc->ijk", H.real, fim[0])
+    def ein(spec, x, y):
+        return jnp.einsum(spec, x, y, precision=hi)
+
+    gre = (ein("ijkc,ijkc->ijk", H.real, fre[0])
+           + ein("ijkc,ijkc->ijk", H.imag, fim[0]))
+    gim = (ein("ijkc,ijkc->ijk", H.imag, fre[0])
+           - ein("ijkc,ijkc->ijk", H.real, fim[0]))
     (pxr, pxi), (pyr, pyi), (pzr, pzi) = _phase_vectors(t_vox, L)
     # Contract z (Hermitian-weighted), then y, then x; keep (re, im).
-    are = jnp.einsum("ijk,k->ij", gre, pzr) - jnp.einsum(
-        "ijk,k->ij", gim, pzi)
-    aim = jnp.einsum("ijk,k->ij", gre, pzi) + jnp.einsum(
-        "ijk,k->ij", gim, pzr)
-    bre = jnp.einsum("ij,j->i", are, pyr) - jnp.einsum("ij,j->i", aim, pyi)
-    bim = jnp.einsum("ij,j->i", are, pyi) + jnp.einsum("ij,j->i", aim, pyr)
-    s = jnp.einsum("i,i->", bre, pxr) - jnp.einsum("i,i->", bim, pxi)
+    are = ein("ijk,k->ij", gre, pzr) - ein("ijk,k->ij", gim, pzi)
+    aim = ein("ijk,k->ij", gre, pzi) + ein("ijk,k->ij", gim, pzr)
+    bre = ein("ij,j->i", are, pyr) - ein("ij,j->i", aim, pyi)
+    bim = ein("ij,j->i", are, pyi) + ein("ij,j->i", aim, pyr)
+    s = ein("i,i->", bre, pxr) - ein("i,i->", bim, pxi)
     return s / (L ** 3)
 
 
@@ -144,9 +147,10 @@ def continuous_score_block(H_real: jax.Array,
     """
     L = grid_size
     Ls = lig_grid
+    hi = precision_for()
     ti = jax.lax.stop_gradient(jnp.round(t_vox))
     tf = t_vox - ti
-    coords_r = jnp.einsum("ij,nj->ni", R, lig_coords) \
+    coords_r = jnp.einsum("ij,nj->ni", R, lig_coords, precision=hi) \
         + tf * resolution
     vol = separable_splat(coords_r, lig_types, lig_mask,
                           grid_size=Ls, resolution=resolution,
@@ -194,7 +198,8 @@ def refine_poses(H: jax.Array,
     def neg_score(params, R0, t0):
         R = axis_angle_to_matrix(
             params["w"] + 1e-12, jnp.linalg.norm(params["w"] + 1e-12,
-                                                 axis=-1)) @ R0
+                                                 axis=-1))
+        R = jnp.matmul(R, R0, precision=precision_for())
         t = t0 + params["dt"]
         return -score(H, lig_coords, lig_types, lig_mask, R,
                       t, rep_fn, **kw)
@@ -220,8 +225,9 @@ def refine_poses(H: jax.Array,
         better = s1 > s0
         w = jnp.where(better, params["w"], 0.0)
         dt = jnp.where(better, params["dt"], 0.0)
-        R = axis_angle_to_matrix(
-            w + 1e-12, jnp.linalg.norm(w + 1e-12, axis=-1)) @ R0
+        R = jnp.matmul(axis_angle_to_matrix(
+            w + 1e-12, jnp.linalg.norm(w + 1e-12, axis=-1)), R0,
+            precision=precision_for())
         return R, t0 + dt, jnp.maximum(s0, s1), s0
 
     t0_vox = shifts.astype(jnp.float32)

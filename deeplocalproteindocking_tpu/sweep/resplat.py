@@ -3,16 +3,15 @@
 The reference rotates the ligand's *representation volume* per rotation
 (CUDA grid resample) because recomputing the representation per rotation
 was too expensive on a 2019 GPU [U: DeepLocalProteinDocking/Models/
-EQDockerGPU.py — mount empty, unverified].  On TPU the economics invert:
-trilinear grid resampling is a scalar-gather bath (~370 ms/rotation
-measured on v5e — 50x the FFT cost), while dense matmuls are nearly
-free.  So the TPU-native hot loop rotates the ligand *atom coordinates*
-(exact, 9 FLOPs/atom), re-splats on a small ligand-sized box with the
-matmul-form separable splat, and re-runs the small 3D CNN (MXU):
+EQDockerGPU.py — mount empty, unverified].  Trilinear resampling is a
+gather per voxel, while dense contractions run on the matrix units, so
+this hot loop rotates the ligand *atom coordinates* (exact, 9
+FLOPs/atom), re-splats on a small ligand-sized box with the matmul-form
+separable splat, and re-runs the small 3D CNN:
 
     per rotation R:
         coords_R = R @ lig_coords                 # exact rotation
-        vol_R    = separable_splat(coords_R)      # MXU contraction
+        vol_R    = separable_splat(coords_R)      # one contraction
         rep_R    = rep_fn(vol_R)                  # 3D CNN on Ls^3 box
         S        = irfftn( sum_d H_d conj(F[embed(rep_R)]_d) )
         streaming top-K
@@ -41,60 +40,9 @@ from deeplocalproteindocking_tpu.correlate.fft import (
     correlate_scores, flat_index_to_shift,
 )
 from deeplocalproteindocking_tpu.grids.voxelize import separable_splat
+from deeplocalproteindocking_tpu.numerics import precision_for
 from deeplocalproteindocking_tpu.sweep.docker import DockResult
-
-
-# Grids on which the fused invz+topk kernel's Mosaic compile has been
-# validated on hardware — auto-engage is restricted to these (Mosaic
-# layout inference has rejected untested shape variants before, and a
-# long job must fail into the score-volume path, not at compile).
-FUSED_GRID_ALLOWLIST = (64, 128)
-
-
-def fused_topk_decision(fused_topk, fft_impl: str, topk_impl: str,
-                        L: int, backend: str | None = None,
-                        env: str | None = None):
-    """Resolve the tri-state fused-kernel flag to ``(engaged, detail)``.
-
-    THE single copy of the auto-engage rule — ``dock_sweep_resplat``
-    applies ``engaged`` at trace time; ``cli doctor`` renders
-    ``detail`` so operator diagnostics can never drift from what
-    production actually does (round-5 review: doctor carried a second
-    hand-written copy of this predicate).
-
-    ``fused_topk``: ``None`` -> auto (engage on eligible + allowlisted
-    grids), ``False`` -> off, ``True`` -> force past the allowlist
-    (still requires eligibility).  ``DLPD_FUSED_TOPK`` ("0"/"1")
-    overrides from the environment, read at trace time.  ``detail``
-    carries ``eligible``, human-readable ``reasons`` for
-    ineligibility, ``forced_off``, ``auto``, ``allowlisted``.
-    """
-    import os as _os
-    if env is None:
-        env = _os.environ.get("DLPD_FUSED_TOPK", "")
-    if backend is None:
-        backend = jax.default_backend()
-    reasons = []
-    if fft_impl != "dft_fused":
-        reasons.append(f"engine resolves to {fft_impl!r} — needs "
-                       f"dft_fused (grids >128 fall back to block)")
-    if topk_impl != "exact":
-        reasons.append(f"topk_impl={topk_impl!r} — needs exact")
-    if L % 32:
-        reasons.append(f"grid {L} % 32 != 0")
-    if backend != "tpu":
-        reasons.append("backend is not TPU")
-    eligible = not reasons
-    allowlisted = L in FUSED_GRID_ALLOWLIST
-    if fused_topk is None:
-        engaged = (eligible and (allowlisted or env == "1")
-                   and env != "0")
-    else:
-        engaged = bool(fused_topk) and eligible and env != "0"
-    return engaged, dict(eligible=eligible, reasons=reasons,
-                         forced_off=env == "0",
-                         auto=fused_topk is None,
-                         allowlisted=allowlisted)
+from deeplocalproteindocking_tpu.sweep.topk import exact_block_topk
 
 
 def auto_ligand_grid(lig_coords: np.ndarray, resolution: float,
@@ -138,7 +86,7 @@ def embed_small(rep_small: jax.Array, grid_size: int) -> jax.Array:
     jax.jit,
     static_argnames=("rep_fn", "grid_size", "lig_grid", "resolution",
                      "sigma", "num_types", "top_k", "chunk", "fft_impl",
-                     "dft_dtype", "topk_impl", "fft_block", "fused_topk"),
+                     "dft_dtype", "topk_impl", "fft_block"),
 )
 def dock_sweep_resplat(H: jax.Array,
                        lig_coords: jax.Array,
@@ -159,8 +107,7 @@ def dock_sweep_resplat(H: jax.Array,
                        fft_impl: str = "dft",
                        dft_dtype: str = "float32",
                        topk_impl: str = "exact",
-                       fft_block: int = 32,
-                       fused_topk: Optional[bool] = None) -> DockResult:
+                       fft_block: int = 32) -> DockResult:
     """Full rotation sweep with per-rotation coordinate re-splatting.
 
     ``H`` is the coupled receptor spectrum (correlate/fft.py);
@@ -175,18 +122,11 @@ def dock_sweep_resplat(H: jax.Array,
         warnings.warn(
             "topk_impl='approx' trades per-rotation top-K set recall "
             "(measured 43/64 on near-tied shape scores, DESIGN.md) for "
-            "~16% speed; top-1 is preserved but top-10 hit-rates can "
+            "speed; top-1 is preserved but top-10 hit-rates can "
             "silently change. Use the default 'exact' for reported "
             "results.", stacklevel=2)
     if num_valid is None:
         num_valid = jnp.asarray(n_rot, dtype=jnp.int32)
-
-    # Fused-kernel engine: transpose/cast the receptor spectrum once,
-    # OUTSIDE the scan (correlate/pallas_fused.py).
-    Ht = None
-    if fft_impl == "dft_fused":
-        corr = get_correlator(L, lig_grid, dft_dtype)
-        Ht = corr.prep_H(H)
 
     pad = (-n_rot) % chunk
     if pad:
@@ -203,69 +143,29 @@ def dock_sweep_resplat(H: jax.Array,
                                grid_size=lig_grid, resolution=resolution,
                                sigma=sigma, num_types=num_types)
 
-    # Fused inverse-z + block-max path (correlate/pallas_invz_topk.py):
-    # the score volume never reaches HBM; exact top-K runs on in-VMEM
-    # block maxima + a D-space drill-down.  TPU-only (interpret-mode
-    # Pallas is too slow for sweeps; equivalence is asserted by
-    # tests/test_pallas_invz_topk.py).  DLPD_FUSED_TOPK=0 is the
-    # operational escape hatch: long eval/train jobs must never be
-    # blocked by a Mosaic regression in this kernel (round 4: a
-    # shape-cast compile failure at grid 64 stalled the held-out
-    # matrix for an hour of retries).
-    # Tri-state ``fused_topk``: ``None`` -> auto, ``False`` -> off,
-    # ``True`` -> force past the grid allowlist (still requires the
-    # dft_fused engine, exact top-K and a 32-multiple grid).  Callers
-    # that vmap this whole sweep (pipeline.rescore's per-head cone
-    # batch, parallel.batch_eval's complex batch, dock_ensemble's pair
-    # batch) are supported since round 5: invz_blockmax carries a
-    # custom_vmap rule that folds the mapped axis into the kernel's
-    # own ``b`` grid axis, so no vmapped pallas_call is ever emitted
-    # (a vmapped pallas_call of this kernel faulted the TPU worker in
-    # round 4).  Auto only engages on compile-validated grids
-    # (64, 128) — Mosaic layout inference has rejected untested shape
-    # variants of this kernel before, and a long job must fail into
-    # the score-volume path, not at compile.  DLPD_FUSED_TOPK=0/1
-    # overrides auto from the environment; it is read at TRACE time,
-    # so changing it inside a process does not affect already-compiled
-    # sweeps (restart semantics, like XLA_FLAGS).
-    fused_topk, _ = fused_topk_decision(fused_topk, fft_impl,
-                                        topk_impl, L)
-
     def step(carry, inp):
         c_scores, c_rot, c_flat = carry
         Rc, base = inp
         with jax.named_scope("rotate_coords_resplat"):
-            coords_r = jnp.einsum("bij,nj->bni", Rc, lig_coords)
+            coords_r = jnp.einsum("bij,nj->bni", Rc, lig_coords,
+                                  precision=precision_for())
             vols = jax.vmap(splat_one)(coords_r)     # [chunk,Ls,Ls,Ls,T]
         with jax.named_scope("ligand_cnn"):
             reps = rep_fn(vols)                      # [chunk,Ls,Ls,Ls,C]
-        if fused_topk:
-            with jax.named_scope("fused_correlate_topk"):
-                vals, flat = _fused_correlate_topk(
-                    Ht, reps, L, lig_grid, dft_dtype, score_mask,
-                    top_k)
-        else:
-            with jax.named_scope("fft_correlate"):
-                if fft_impl == "dft_fused":
-                    S = _correlate_fused(Ht, reps, L, lig_grid,
-                                         dft_dtype)
-                else:
-                    S = _correlate_batch(H, reps, L, fft_impl,
-                                         dft_dtype, fft_block)
-            if score_mask is not None:
-                S = jnp.where(score_mask[None], S, neg_inf)
-            Sf = S.reshape(chunk, L * L * L)
-            with jax.named_scope("streaming_topk"):
-                if topk_impl == "approx":
-                    # TPU-optimized approximate top-k (recall ~0.95 at
-                    # default settings); candidates re-merge exactly.
-                    vals, flat = jax.lax.approx_max_k(Sf, top_k)
-                else:
-                    # Exact two-stage block top-k (sweep/topk.py):
-                    # same value multiset as lax.top_k, ~2.4x faster.
-                    from deeplocalproteindocking_tpu.sweep.topk import (
-                        exact_block_topk)
-                    vals, flat = exact_block_topk(Sf, top_k)
+        with jax.named_scope("fft_correlate"):
+            S = _correlate_batch(H, reps, L, fft_impl, dft_dtype,
+                                 fft_block)
+        if score_mask is not None:
+            S = jnp.where(score_mask[None], S, neg_inf)
+        Sf = S.reshape(chunk, L * L * L)
+        with jax.named_scope("streaming_topk"):
+            if topk_impl == "approx":
+                # Approximate top-k; candidates re-merge exactly below.
+                vals, flat = jax.lax.approx_max_k(Sf, top_k)
+            else:
+                # Exact two-stage block top-k (sweep/topk.py): same
+                # value multiset as lax.top_k.
+                vals, flat = exact_block_topk(Sf, top_k)
         rot_ids = base + jnp.arange(chunk, dtype=jnp.int32)
         valid = rot_ids < num_valid
         vals = jnp.where(valid[:, None], vals, neg_inf)
@@ -287,53 +187,6 @@ def dock_sweep_resplat(H: jax.Array,
                       shifts=flat_index_to_shift(flat_idx, L))
 
 
-def _correlate_fused(Ht, reps, grid_size, lig_grid, dft_dtype):
-    """Score volumes via the fused Pallas kernel on TPU.
-
-    On any other backend (the CPU test mesh) the mathematically
-    identical einsum path runs instead: interpret-mode Pallas executes
-    the kernel per grid cell in Python and is orders of magnitude too
-    slow for full sweeps.  Kernel==einsum equivalence is asserted by
-    tests/test_pallas_fused.py in interpret mode on small shapes.
-    """
-    corr = get_correlator(grid_size, lig_grid, dft_dtype)
-    if jax.default_backend() != "tpu":
-        HtRe, HtIm = Ht
-        Hre = jnp.transpose(HtRe, (3, 2, 0, 1)).astype(jnp.float32)
-        Him = jnp.transpose(HtIm, (3, 2, 0, 1)).astype(jnp.float32)
-        return corr.scores(Hre, Him, reps)
-    return corr.scores_fused(Ht[0], Ht[1], reps)
-
-
-def _fused_correlate_topk(Ht, reps, grid_size, lig_grid, dft_dtype,
-                          score_mask, top_k, interpret=False):
-    """(vals, flat) top-K per rotation WITHOUT materializing S.
-
-    Same forward-z + fused_correlate front half as
-    DFTCorrelator.scores_fused; the Hermitian kz->z inverse, the
-    translation mask and the block-max reduce then run fused in VMEM
-    (correlate/pallas_invz_topk.py) and the exact top-K drills the
-    winning blocks back out of D.
-    """
-    from deeplocalproteindocking_tpu.correlate.pallas_invz_topk import (
-        drill_topk, invz_blockmax)
-    f32 = jnp.float32
-    L = grid_size
-    corr = get_correlator(L, lig_grid, dft_dtype)
-    Dre, Dim = corr.fused_D(Ht[0], Ht[1], reps, interpret=interpret)
-    MzRe = jnp.asarray(corr.MzRe, f32)
-    MzIm = jnp.asarray(corr.MzIm, f32)
-    if score_mask is not None:
-        bias = jnp.where(score_mask, 0.0, -jnp.inf).astype(f32)
-        bias_flat = bias.reshape(-1)
-    else:
-        bias = jnp.zeros((L, L, L), f32)
-        bias_flat = None
-    bmax = invz_blockmax(Dre, Dim, MzRe, MzIm, bias,
-                         interpret=interpret)
-    return drill_topk(Dre, Dim, MzRe, MzIm, bias_flat, bmax, top_k)
-
-
 def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype,
                      fft_block=32):
     """Score volumes ``[B, L, L, L]`` for small-box reps (any engine)."""
@@ -348,12 +201,10 @@ def _correlate_batch(H, reps, grid_size, fft_impl, dft_dtype,
         return jax.vmap(
             lambda r: block_correlate_scores(H, r, None,
                                              block=fft_block))(reps)
-    if fft_impl in ("dft", "dft_pallas"):
+    if fft_impl == "dft":
         corr = get_correlator(grid_size, reps.shape[-2], dft_dtype)
-        inverse_impl = "pallas" if fft_impl == "dft_pallas" else "einsum"
         return corr.scores(H.real.astype(jnp.float32),
-                           H.imag.astype(jnp.float32), reps,
-                           inverse_impl=inverse_impl)
+                           H.imag.astype(jnp.float32), reps)
     big = embed_small(reps, grid_size)
     return jax.vmap(lambda v: correlate_scores(H, v))(big)
 
@@ -382,7 +233,7 @@ def score_decoys_resplat(H: jax.Array,
     (BASELINE.json: north_star).  Sequential ``lax.map`` + remat keeps
     reverse-mode memory at one decoy.
     """
-    if fft_impl in ("dft", "dft_fused", "dft_pallas"):
+    if fft_impl == "dft":
         # Single-pose scores need no inverse transform at all: evaluate
         # S(t) = sum_k G[k] exp(+2 pi i k.t / L) by three small phase
         # contractions (sweep/refine.py) — ~2x cheaper per decoy than
@@ -404,7 +255,8 @@ def score_decoys_resplat(H: jax.Array,
     @jax.checkpoint
     def score_one(args):
         R, s = args
-        coords_r = jnp.einsum("ij,nj->ni", R, lig_coords)
+        coords_r = jnp.einsum("ij,nj->ni", R, lig_coords,
+                              precision=precision_for())
         vol = separable_splat(coords_r, lig_types, lig_mask,
                               grid_size=lig_grid, resolution=resolution,
                               sigma=sigma, num_types=num_types)

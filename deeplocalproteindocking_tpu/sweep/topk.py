@@ -1,12 +1,11 @@
 """Exact two-stage top-K for huge score volumes.
 
-``jax.lax.top_k`` over a 128^3 = 2.1M-element score volume costs
-~0.45 ms/rotation on v5e (measured in-scan, tools/profile_sweep.py) —
-the sort network runs on the VPU and dominates once the DFT is matmul
--formulated.  This module computes the EXACT top-K two-stage:
+``jax.lax.top_k`` over a 128^3 = 2.1M-element score volume is a sort
+over every cell of every rotation.  This module computes the EXACT
+top-K two-stage:
 
 1. block-reduce: max over contiguous blocks of ``block`` elements
-   (a fast VPU reduction over the minor axis);
+   (a streaming reduction over the minor axis);
 2. ``top_k`` over the ~n/block block-maxes (block times cheaper);
 3. gather the K winning blocks' full contents (K x block candidates)
    and re-``top_k``.
@@ -19,9 +18,8 @@ which of several equal-valued cells is returned may differ from
 ``lax.top_k``'s index order, same as any tie-breaking scheme.)
 
 This replaces the reference's per-rotation peak harvest
-[U: DeepLocalProteinDocking/Models/EQDockerGPU.py — mount empty] with a
-TPU-shaped exact reduction; measured ~5x faster than direct top_k at
-K=64, block=32 on 128^3 volumes.
+[U: DeepLocalProteinDocking/Models/EQDockerGPU.py — mount empty] with
+an exact reduction that sorts only block maxima.
 """
 from __future__ import annotations
 
@@ -39,7 +37,7 @@ def exact_block_topk(x: jax.Array, k: int, block: int = 32,
 
     ``block2`` adds a SECOND max-reduction level (round-3): at 128^3
     the single-level scheme still ran ``top_k`` over n/block = 65k
-    block maxes — the dominant VPU sort.  With a second level the sort
+    block maxes — the dominant sort.  With a second level the sort
     runs over n/(block*block2) = 2k super-maxes; the two drill-down
     stages each re-``top_k`` only k*block2 / k*block candidates.
 

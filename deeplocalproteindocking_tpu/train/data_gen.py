@@ -17,6 +17,7 @@ from deeplocalproteindocking_tpu.config import DockConfig
 from deeplocalproteindocking_tpu.data.benchmark import (
     Complex, structure_to_device,
 )
+from deeplocalproteindocking_tpu.numerics import precision_for
 from deeplocalproteindocking_tpu.train.decoys import generate_decoys
 from deeplocalproteindocking_tpu.train.trainer import TrainBatch
 
@@ -157,8 +158,10 @@ def make_training_batch(key: jax.Array,
                 # Mined poses live in the canonical frame; transport
                 # them to the R0-rotated frame: x' = R0 x, so
                 # R' = R0 R R0^T and s' = R0 s (labels are invariant).
-                mR = jnp.einsum("ij,djk,lk->dil", R0, mR, R0)
-                mS = jnp.einsum("ij,dj->di", R0, mS)
+                hi = precision_for()
+                mR = jnp.einsum("ij,djk,lk->dil", R0, mR, R0,
+                                precision=hi)
+                mS = jnp.einsum("ij,dj->di", R0, mS, precision=hi)
             rot_parts.append(mR)
             shift_parts.append(mS)
             lrmsd_parts.append(mL)

@@ -9,8 +9,8 @@ global sweep over each training complex, keep the top-K poses with
 their LRMSD labels, and feed them back as decoys
 (data_gen.make_training_batch(mined=...)).
 
-Runs the real sweep engine (sweep/resplat.py), so mining on TPU costs
-one small global sweep per complex (~0.1 s at 256 rotations, 64-grid).
+Runs the real sweep engine (sweep/resplat.py), so mining costs one
+small global sweep per complex.
 """
 from __future__ import annotations
 

@@ -7,23 +7,26 @@ periodic checkpoints.  Gradients flow model-params -> representation ->
 FFT correlator score gather, and the voxelizer itself is on the autodiff
 path (coords -> volume -> rep), matching BASELINE.json: north_star.
 
-TPU-native design:
+Design:
 
 * one jitted ``train_step`` over a *batch* of complexes (vmap), with the
   per-decoy rotate+correlate wrapped in ``jax.checkpoint`` inside a
   sequential ``lax.map`` — reverse-mode memory stays O(one decoy), the
   classic remat trade (SURVEY.md §7 hard part 4);
-* Orbax checkpointing of (params, opt_state, step, rng) replacing the
-  reference's ``torch.save`` (SURVEY.md §5.4);
+* one ``step_<N>.npz`` per checkpoint holding (params, opt_state, step,
+  rng) by key path, replacing the reference's ``torch.save``
+  (SURVEY.md §5.4);
 * a data-parallel variant lives in ``parallel/train_parallel.py``.
 """
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import optax
 
 from deeplocalproteindocking_tpu.config import DockConfig
@@ -115,36 +118,74 @@ class Trainer:
         return self._step_fn(state, batch)
 
     # ---- checkpointing (SURVEY.md §5.4) ----
-    def save(self, ckpt_dir: str, state: TrainState) -> None:
-        import orbax.checkpoint as ocp
-        path = os.path.abspath(
-            os.path.join(ckpt_dir, f"step_{int(state.step):08d}"))
-        with ocp.StandardCheckpointer() as ckptr:
-            ckptr.save(path, dict(params=state.params,
-                                  opt_state=state.opt_state,
-                                  step=state.step,
-                                  key=jax.random.key_data(state.key)))
+    def save(self, ckpt_dir: str, state: TrainState) -> str:
+        """Write ``step_<N>.npz`` (+ ``config.json``); returns its path."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        path = os.path.join(ckpt_dir, f"step_{int(state.step):08d}.npz")
+        arrays = flatten_state(dict(params=state.params,
+                                    opt_state=state.opt_state))
+        arrays["step"] = np.asarray(state.step)
+        arrays["key"] = np.asarray(jax.random.key_data(state.key))
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **arrays)
+        os.replace(tmp, path)
         with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
             f.write(self.config.to_json())
+        return path
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> TrainState:
-        import orbax.checkpoint as ocp
         if step is None:
-            steps = sorted(int(d.split("_")[1])
-                           for d in os.listdir(ckpt_dir)
-                           if d.startswith("step_"))
+            steps = checkpoint_steps(ckpt_dir)
             if not steps:
                 raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
             step = steps[-1]
-        path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step:08d}"))
+        path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
         template = self.init_state()
-        target = dict(params=template.params,
-                      opt_state=template.opt_state,
-                      step=template.step,
-                      key=jax.random.key_data(template.key))
-        with ocp.StandardCheckpointer() as ckptr:
-            restored = ckptr.restore(path, target)
-        return TrainState(params=restored["params"],
-                          opt_state=restored["opt_state"],
-                          step=restored["step"],
-                          key=jax.random.wrap_key_data(restored["key"]))
+        with np.load(path) as z:
+            tree = unflatten_state(
+                dict(params=template.params,
+                     opt_state=template.opt_state), z, path)
+            return TrainState(
+                params=tree["params"], opt_state=tree["opt_state"],
+                step=jnp.asarray(z["step"], jnp.int32),
+                key=jax.random.wrap_key_data(jnp.asarray(z["key"])))
+
+
+_STEP_FILE = re.compile(r"^step_(\d+)\.npz$")
+
+
+def checkpoint_steps(ckpt_dir: str) -> list:
+    """Sorted step numbers of the ``step_<N>.npz`` files in a dir."""
+    return sorted(int(m.group(1)) for m in map(_STEP_FILE.match,
+                                               os.listdir(ckpt_dir)) if m)
+
+
+def _key_name(path) -> str:
+    parts = []
+    for k in path:
+        for attr in ("key", "idx", "name"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+    return "/".join(parts)
+
+
+def flatten_state(tree) -> dict:
+    """``{"params/representation/cnn/conv0/kernel": ndarray, ...}``."""
+    return {_key_name(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def unflatten_state(template, arrays, where: str = "checkpoint"):
+    """Fill ``template``'s leaves from ``arrays`` by key path; a missing
+    name or a shape that differs from the template is an error."""
+    def leaf(p, t):
+        name = _key_name(p)
+        if name not in arrays:
+            raise KeyError(f"{where}: no array {name!r}")
+        v = np.asarray(arrays[name])
+        if v.shape != np.shape(t):
+            raise ValueError(f"{where}: {name!r} has shape {v.shape}, "
+                             f"the model wants {np.shape(t)}")
+        return jnp.asarray(v, dtype=jnp.asarray(t).dtype)
+    return jax.tree_util.tree_map_with_path(leaf, template)

@@ -2,9 +2,7 @@
 
 The reference logs loss to stdout/text files and commits matplotlib
 figures [U]; here every training/eval event is one JSON line with a
-wall-clock timestamp, machine-parseable, with an optional TensorBoard
-mirror (enabled when tensorboardX/flax metric_writers are available —
-not required).
+wall-clock timestamp, machine-parseable.
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ def fnat(rec: jax.Array, lig_native: jax.Array, lig_pose: jax.Array,
     ``rec_res``/``lig_res`` are integer residue ids per atom; a residue
     pair is in contact when any heavy-atom pair is within ``cutoff``.
     Implemented with a dense residue-pair contact table via segment-max
-    over atom pairs (static shapes, TPU friendly).  Pass
+    over atom pairs (static shapes, jit friendly).  Pass
     ``num_rec_res``/``num_lig_res`` to call under jit (otherwise the
     counts are read from the concrete id arrays on the host).
     """

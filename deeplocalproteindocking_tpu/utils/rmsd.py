@@ -5,7 +5,7 @@ Capability parity with the reference's ``Coords2RMSD``
 unverified]: minimum RMSD over rigid superposition via the quaternion
 eigen-method (Kearsley/Kabsch), differentiable.
 
-TPU-native design: the reference implements the 4x4 eigen-problem and
+Design: the reference implements the 4x4 eigen-problem and
 its gradient in C++/CUDA; in JAX it is ``jnp.linalg.eigh`` on a 4x4 —
 autodiff gives the gradient for free, and the op is tiny (runs on
 scalar/vector units; never a bottleneck).
@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from deeplocalproteindocking_tpu.numerics import precision_for
 
 
 def _masked_center(x, w):
@@ -35,7 +37,8 @@ def rmsd(a: jax.Array, b: jax.Array,
 
 def _quaternion_matrix(a, b, w):
     """Kearsley 4x4 key matrix from centered weighted coord sets."""
-    M = jnp.einsum("...ni,...nj->...ij", a * w[..., None], b)  # [...,3,3]
+    M = jnp.einsum("...ni,...nj->...ij", a * w[..., None], b,
+                   precision=precision_for())               # [...,3,3]
     tr = jnp.trace(M, axis1=-2, axis2=-1)
     A = M - jnp.swapaxes(M, -1, -2)
     d = jnp.stack([A[..., 1, 2], A[..., 2, 0], A[..., 0, 1]], axis=-1)

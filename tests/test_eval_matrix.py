@@ -1,7 +1,7 @@
 """tools/eval_matrix.py row driver: per-complex checkpoint/resume.
 
 Round 4: three straight 48-complex rerank-row attempts died mid-row to
-TPU worker faults and the whole matrix stalled, because rows only
+device worker faults and the whole matrix stalled, because rows only
 checkpointed at row END.  eval_row must (a) checkpoint after every
 complex via on_progress, (b) resume from a partial row without
 re-docking finished complexes, (c) produce rows in canonical complex

@@ -1,5 +1,5 @@
 """Multi-device semantics on the virtual 8-CPU mesh (SURVEY.md §4):
-the same shard_map code paths that run on a v5e-8."""
+the same shard_map code paths that run on a multi-GPU host."""
 import numpy as np
 import jax
 import jax.numpy as jnp

@@ -84,7 +84,7 @@ class TestPretrained:
         cfg = _cfg(CKPT_V2)
         state = Trainer(cfg).restore(CKPT_V2)
         assert int(state.step) > 0
-        # v2 was TPU-trained with held-out early stopping: ranking
+        # v2 was trained with held-out early stopping: ranking
         # accuracy 0.88 vs 0.33 random at commit time (train logs in
         # pretrained/synthetic-v2/train.jsonl).
 

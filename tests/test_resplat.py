@@ -342,46 +342,3 @@ class TestSE3Consistency:
         np.testing.assert_allclose(s1, s0, rtol=1e-3)
         # Best translation rotates with the frame.
         np.testing.assert_allclose(np.asarray(R) @ t0, t1, atol=0.51)
-
-
-class TestFusedTopkDecision:
-    """The single-copy auto-engage rule (shared with cli doctor)."""
-
-    def _d(self, **kw):
-        from deeplocalproteindocking_tpu.sweep.resplat import (
-            fused_topk_decision)
-        base = dict(fused_topk=None, fft_impl="dft_fused",
-                    topk_impl="exact", L=64, backend="tpu", env="")
-        base.update(kw)
-        return fused_topk_decision(
-            base["fused_topk"], base["fft_impl"], base["topk_impl"],
-            base["L"], backend=base["backend"], env=base["env"])
-
-    def test_auto_on_allowlisted_tpu(self):
-        for L in (64, 128):
-            engaged, det = self._d(L=L)
-            assert engaged and det["eligible"] and det["allowlisted"]
-
-    def test_auto_off_outside_allowlist_env_forces(self):
-        engaged, det = self._d(L=96)
-        assert not engaged and det["eligible"] and not det["allowlisted"]
-        engaged, _ = self._d(L=96, env="1")
-        assert engaged
-        # force-on via flag also works past the allowlist
-        engaged, _ = self._d(L=96, fused_topk=True)
-        assert engaged
-
-    def test_env_zero_always_wins(self):
-        assert not self._d(env="0")[0]
-        assert not self._d(env="0", fused_topk=True)[0]
-
-    def test_ineligibility_reasons(self):
-        for kw, frag in [(dict(backend="cpu"), "not TPU"),
-                         (dict(fft_impl="block"), "dft_fused"),
-                         (dict(topk_impl="approx"), "exact"),
-                         (dict(L=48), "% 32")]:
-            engaged, det = self._d(**kw)
-            assert not engaged and not det["eligible"]
-            assert any(frag in r for r in det["reasons"])
-            # even forced, ineligible never engages
-            assert not self._d(fused_topk=True, **kw)[0]

@@ -20,9 +20,9 @@ class TestConfig:
     def test_presets_cover_baseline_configs(self):
         # The five BASELINE.json configs map to five named presets.
         assert set(PRESETS) == {"tiny-shape", "rep-score", "full-sweep",
-                                "train", "benchmark-v5e8"}
+                                "train", "benchmark-4gpu"}
         assert PRESETS["full-sweep"].num_rotations == 13000
-        assert PRESETS["benchmark-v5e8"].mesh_rot == 8
+        assert PRESETS["benchmark-4gpu"].mesh_rot == 4
 
     def test_replace(self):
         cfg = DockConfig()

@@ -61,7 +61,7 @@ def eval_row(dock_fn, complexes, label, partial=None, on_progress=None):
     ``partial`` is a list of already-graded row dicts (matched by
     complex name) from an interrupted run; ``on_progress(rows)`` is
     called after every complex so the caller can checkpoint.  Per-
-    complex resume matters: a TPU worker fault 40 complexes into a
+    complex resume matters: a device worker fault 40 complexes into a
     48-complex row must not restart the row (round 4: three straight
     rerank-row attempts died mid-row and the whole matrix stalled).
     """
@@ -217,7 +217,7 @@ def main():
     check_seed_disjointness(ckpt, seed0, n_cplx)
     complexes = heldout_complexes(n_cplx, widen=widen, seed0=seed0,
                                   unbound=unbound, backbone=backbone)
-    # Row-level resume: a TPU worker fault mid-matrix must not lose
+    # Row-level resume: a device worker fault mid-matrix must not lose
     # completed rows (measured round 4: a 48-complex rerank row died
     # 2/3 of the way through the matrix and the whole run was lost).
     # Fingerprint of every env knob that changes what a row MEANS: a
@@ -274,7 +274,7 @@ def main():
         # Provenance, not protocol: bf16==fp32 licensing showed hit
         # decisions are numerics-robust, so platform is recorded for
         # honesty but deliberately kept out of the fingerprint (a row
-        # started on CPU during a TPU outage may be finished on TPU).
+        # started on CPU may be finished on the GPU).
         import jax
         row["platform"] = jax.default_backend()
         results[key] = row

@@ -1,10 +1,10 @@
 """Characterize the block-decomposed correlation engine at 192/256 cubed.
 
-SURVEY §5.7's long-context analog: grids whose spectra outgrow HBM run
-the overlap-save block engine (correlate/blockfft.py).  Round 3 made it
-reachable end to end (192³ dock tested); this tool turns "works" into
-"characterized" — wall-clock per rotation and device peak memory at
-192³ and 256³ on the real chip, the numbers DESIGN.md cites.
+SURVEY §5.7's long-context analog: grids whose spectra outgrow device
+memory run the overlap-save block engine (correlate/blockfft.py).  It
+is reachable end to end (192³ dock tested); this tool turns "works"
+into "characterized" — wall-clock per rotation and device peak memory
+at 192³ and 256³ on the card.
 
 Usage: python tools/measure_256.py [n_rot] [grids]
 Env: M256_CHUNK (rotation chunk, default 16), M256_BLOCK (fft_block).

@@ -1,13 +1,14 @@
 """Measure 8-way rotation-sharding overhead on the virtual CPU mesh.
 
-Round-1 VERDICT next-round #7: the v5e-8 figure was a projection; this
-tool MEASURES what can be measured without 8 real chips — the cost the
+This tool measures what can be measured without 8 real devices — the
+cost the
 sharded program adds over the same per-shard work run unsharded (the
 all-gather top-K merge + shard_map machinery), and the per-shard skew
 (rotation-count imbalance).  Virtual CPU devices share host cores, so
-absolute times are not TPU times; the *delta* between `sharded(8, N)`
-and `unsharded(N/8)` isolates the merge/dispatch overhead, and the
-gathered payload size bounds the ICI cost on real hardware.
+absolute times are not device times; the *delta* between
+`sharded(8, N)` and `unsharded(N/8)` isolates the merge/dispatch
+overhead, and the gathered payload size bounds the interconnect cost
+on real hardware.
 
 Usage: XLA not preconfigured — the script forces an 8-device CPU
 platform itself.  python tools/measure_scaling.py [n_rot]
@@ -107,8 +108,7 @@ def main():
           f"unsharded)")
     print(f"per-shard rotation counts (skew): {counts}")
     print(f"all-gather payload: {payload} bytes total "
-          f"({top_k} candidates x 20 B x 8 shards) — negligible vs "
-          f"v5e ICI (~10 us at line rate)")
+          f"({top_k} candidates x 20 B x 8 shards)")
 
 
 if __name__ == "__main__":

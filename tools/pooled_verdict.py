@@ -141,8 +141,8 @@ def mcnemar(a: dict, b: dict, metric: str) -> dict:
 def platform_sensitivity(matrix_dir, files, proto, pooled):
     """Re-pool with CPU-recomputed band-100 rows substituted.
 
-    Band 100 (``eval_matrix_48.json``) was graded on the TPU; the
-    widening bands ran on CPU.  ``eval_matrix_48_cpu_parity.json``
+    Band 100 (``eval_matrix_48.json``) was graded on the original
+    accelerator; the widening bands ran on CPU.  ``eval_matrix_48_cpu_parity.json``
     recomputes band-100's local rows on CPU under the identical
     protocol.  Pooling across platforms is only honest if the verdict
     is insensitive to which platform graded band 100 — this section
@@ -166,15 +166,15 @@ def platform_sensitivity(matrix_dir, files, proto, pooled):
         if not (isinstance(v, dict) and "complexes" in v):
             continue
         cpu_rows = {c["name"]: c for c in v["complexes"]}
-        tpu_rows = {c["name"]: c for c in base.get(row, {})
-                    .get("complexes", [])}
+        base_rows = {c["name"]: c for c in base.get(row, {})
+                     .get("complexes", [])}
         flips = [
             dict(name=n, metric=m,
-                 tpu=tpu_rows[n][m], cpu=cpu_rows[n][m])
-            for n in sorted(set(cpu_rows) & set(tpu_rows))
-            for m in METRICS if tpu_rows[n][m] != cpu_rows[n][m]]
+                 base=base_rows[n][m], cpu=cpu_rows[n][m])
+            for n in sorted(set(cpu_rows) & set(base_rows))
+            for m in METRICS if base_rows[n][m] != cpu_rows[n][m]]
         out["flips"][row] = dict(
-            n_decisions=2 * len(set(cpu_rows) & set(tpu_rows)),
+            n_decisions=2 * len(set(cpu_rows) & set(base_rows)),
             n_flips=len(flips), detail=flips)
         subst[row] = cpu_rows
     for row_a, row_b in PAIRS:

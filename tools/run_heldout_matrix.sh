@@ -32,7 +32,7 @@ base="EM_BACKBONE=1 EM_UNBOUND=1.2 EM_WIDEN=1 EM_COMPLEXES=48 \
 EM_SEED0=$SEED0 EM_NROT=1536 EM_GRID=64"
 
 # eval_matrix.py checkpoints per complex and resumes from its output
-# file, so a TPU worker crash (observed round 4) costs one complex,
+# file, so a device worker crash (observed round 4) costs one complex,
 # not the run: retry each column up to 3 times.
 run_col() {
     for attempt in 1 2 3; do

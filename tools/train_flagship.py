@@ -121,9 +121,9 @@ def main():
     cfg = DockConfig(
         grid_size=grid, resolution=1.25, rep_features=features,
         shape_prior=True,   # learned ++ 2 prior channels (default
-                            # 14+2=16 keeps the fused kernel's C=16
-                            # tiling; eval absorbs wider stacks via
-                            # the licensed rank-r coupling fold)
+                            # 14+2=16 correlation channels; eval
+                            # absorbs wider stacks via the licensed
+                            # rank-r coupling fold)
         num_decoys=24, batch_complexes=2, learning_rate=lr,
         lr_decay_steps=steps, weight_decay=1e-4,
         near_native_rmsd=near_native, hinge_margin=hinge,
